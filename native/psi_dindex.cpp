@@ -17,7 +17,9 @@
 #include <vector>
 
 #ifdef _OPENMP
+#ifdef _OPENMP
 #include <omp.h>
+#endif
 #endif
 
 namespace {

@@ -1,8 +1,10 @@
-"""psi_tpu — a TPU-native pan-genome seed-finding engine.
+"""psi_tpu — a pan-genome seed-finding engine in JAX (runs on NVIDIA
+GPUs and on the CPU).
 
 A from-scratch reimplementation of the capabilities of cartoonist/psi
 (Ghaffaari & Marschall, "Fully-sensitive seed finding in sequence graphs
-using a hybrid index", Bioinformatics 2019) designed for TPUs:
+using a hybrid index", Bioinformatics 2019) built for batched device
+execution:
 
   * graph / sequence substrate as dense NumPy/JAX arrays (CSR adjacency,
     concatenated node labels, char-order prefix sums),

@@ -30,7 +30,7 @@ log = logging.getLogger("psikt")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="psikt",
-        description="Pan-genome seed finder (TPU-native PSI).",
+        description="Pan-genome seed finder (PSI on JAX).",
     )
     p.add_argument("graph", metavar="GRAPH_FILE", help="graph file (vg or gfa)")
     p.add_argument("-f", "--fastq", required=True, help="reads in FASTQ format")
@@ -91,14 +91,16 @@ def build_parser() -> argparse.ArgumentParser:
         "declares but never implements approximate matching)",
     )
     p.add_argument(
-        "--device", choices=["auto", "tpu", "cpu"], default="auto",
-        help="compute platform for the batched engines",
+        "--device", choices=["auto", "gpu", "cpu"], default="auto",
+        help="compute platform for the batched engines: gpu (CUDA; "
+        "exits with an error when no GPU is present), cpu, or auto "
+        "(JAX's default)",
     )
     p.add_argument(
         "--devices", default=None, metavar="N|auto",
         help="device-mesh width for the sharded query pipeline: a "
-        "count, or 'auto' for all local devices (default: all devices "
-        "on accelerator backends, 1 on CPU; also via PSI_DEVICES)",
+        "count, or 'auto' for all local devices (default: all GPUs, "
+        "1 on CPU; also via PSI_DEVICES)",
     )
     p.add_argument(
         "--resume", action="store_true",
@@ -130,10 +132,18 @@ def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     setup_logging(args)
 
-    if args.device == "cpu":
-        import jax
+    from psi_tpu import platform
+    from psi_tpu.cache import enable_compile_cache
 
-        jax.config.update("jax_platforms", "cpu")
+    try:
+        dev = platform.select(args.device)
+    except RuntimeError as exc:
+        log.error("%s", exc)
+        return 2
+    log.info(
+        "Device: %s (%s) x%d; compile cache %s.",
+        dev.platform, dev.kind, dev.count, enable_compile_cache(),
+    )
 
     from psi_tpu.io import load_graph
     from psi_tpu.io.fastq import FastxStream
@@ -289,10 +299,15 @@ def main(argv: Optional[list] = None) -> int:
             "Fetched %d reads with total length of %dbp (%d seeds).",
             len(chunk), chunk.length_sum(), len(seeds),
         )
+        t_chunk = time.monotonic()
         prep_fut.result()  # on-path plan ready (built off-thread)
         hits = finder.seeds_all_arrays(seeds, index)
         found += len(hits)
         n_chunks += 1
+        log.info(
+            "Chunk %d: %d hits in %.3fs.",
+            n_chunks, len(hits), time.monotonic() - t_chunk,
+        )
         covered_reads.update(np.unique(hits["read_id"]).tolist())
         # bulk binary write of (node_id, node_offset, read_id, read_offset);
         # on node-doubled bidirected inputs (graph.rc_base > 0) hits on

@@ -1,6 +1,6 @@
 """Distance index: base-pair-resolution reachability within [dmin, dmax].
 
-TPU-native re-design of the DiVerG distance index (usage per ref:
+Array-native re-design of the DiVerG distance index (usage per ref:
 include/psi/seed_finder.hpp:1193-1317; dindexctl tool semantics): the
 reference materialises a boolean CSR matrix over *char-order* coordinates
 (range-compressed rows) by boolean matrix powering.
@@ -243,19 +243,23 @@ class DistanceIndex:
         idx.sup, idx.head, idx.tail = sup, head, tail
 
         if os.environ.get("PSI_DINDEX_BUILD", "") == "device":
-            # TPU path-doubling build (ops/dindex_build.py): identical
+            # device path-doubling build (ops/dindex_build.py): identical
             # rows to the native reverse-topo DP, no sequential sweep.
             # Always per-component (the reference's PerComponent mode):
-            # device memory AND the (possibly remote) compiler's working
-            # set are bounded by the largest component
+            # device memory AND the compiler's working set are bounded
+            # by the largest component
             from psi_tpu.ops import dindex_build
 
             res = dindex_build.build_super_device_per_component(
                 sup_len, s_indptr, s_indices, dmax
             )
-            if res is not None:
-                idx.src_indptr, idx.dst, idx.iv_lo, idx.iv_hi = res
-                return idx
+            if res is None:
+                raise RuntimeError(
+                    "PSI_DINDEX_BUILD=device: the device build does not "
+                    "fit int32 capacities for this graph"
+                )
+            idx.src_indptr, idx.dst, idx.iv_lo, idx.iv_hi = res
+            return idx
 
         from psi_tpu import native
 
@@ -525,13 +529,12 @@ class DistanceIndex:
           * "sort" (default): ONE multi-key lax.sort of the row keys
             concatenated with the (host-split) query keys, with a tag
             as tertiary key; each query's searchsorted-right position
-            falls out of a cumsum over the merged order. Sorts are the
-            fastest random-access primitive measured on v5e (SCALING.md
-            round 3b) — no serialized gathers.
+            falls out of a cumsum over the merged order — no dependent
+            gathers.
           * "bisect": a fixed-trip lexicographic bisection (2 gathers
             per step over the split keys).
 
-        PSI_DINDEX_PROBE overrides; numbers in docs/SCALING.md round 4.
+        PSI_DINDEX_PROBE overrides.
         """
         import os
 

@@ -1,15 +1,16 @@
 """FM-index over a concatenated string set, built for batched device queries.
 
-TPU-native redesign of the reference FM layer (ref: include/psi/fmindex.hpp
+Array-native redesign of the reference FM layer (ref: include/psi/fmindex.hpp
 wrapping sdsl::csa_wt, value semantics per fmindex.hpp:79-212): instead of
-a wavelet tree + sampled SA walked by scalar code, the index is dense HBM
-arrays —
+a wavelet tree + sampled SA walked by scalar code, the index is dense
+device arrays —
 
   C[σ+1]         cumulative symbol counts
   occ[nb+1, σ]   occ checkpoints every B positions of the BWT
   bwt[n]         BWT symbols (uint8 codes)
   sa[n]          full suffix array (dense; locate = one gather instead of a
-                 divergent LF walk — HBM is cheap on TPU relative to latency)
+                 divergent LF walk — device memory is cheap relative to
+                 latency)
   str_starts[m+1] concatenated-text start of each string (sentinel-separated)
 
 Alphabet: $=0 < A=1 < C=2 < G=3 < T=4 < N=5 (sentinel convention mirrors

@@ -1,9 +1,9 @@
 """Sequence-graph substrate as dense arrays.
 
-TPU-native replacement for the reference's GUM ``SeqGraph`` + PSI shims
+Array-native replacement for the reference's GUM ``SeqGraph`` + PSI shims
 (ref: include/psi/graph.hpp, gum usage at include/psi/seed_finder.hpp:1156-1166):
 the graph is held as CSR adjacency + concatenated node labels + per-node
-char-order prefix sums, all NumPy arrays ready to be placed in HBM.
+char-order prefix sums, all NumPy arrays ready to be placed on the device.
 
 Node identity model
 -------------------

@@ -1,12 +1,19 @@
 """ctypes bindings for the native host kernels (native/psi_host.cpp).
 
-Auto-builds libpsi_host.so with g++ on first use; every entry point has a
-pure-NumPy fallback so the engine works without a toolchain.
+Builds libpsi_host.so with g++ on first use into
+native/build/<key>/, where <key> hashes the tracked sources
+(native/*.cpp, native/Makefile) and the host's CPU fingerprint (the
+build uses -march=native). Only that library is ever loaded: one built
+from other sources or on another machine is never picked up. Every
+entry point has a pure-NumPy fallback so the engine works without a
+toolchain; `available()` says which one runs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
 import subprocess
 import threading
@@ -17,32 +24,72 @@ import numpy as np
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+#: why the library is not loaded (None while loaded or not yet tried)
+load_error: Optional[str] = None
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
-_SO_PATH = os.path.join(_NATIVE_DIR, "libpsi_host.so")
+
+
+def build_key() -> str:
+    """Hash of the native sources, the Makefile and the host."""
+    from psi_tpu.cache import host_fingerprint
+
+    h = hashlib.sha256(host_fingerprint().encode())
+    for path in sorted(glob.glob(os.path.join(_NATIVE_DIR, "*.cpp"))) + [
+        os.path.join(_NATIVE_DIR, "Makefile")
+    ]:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> str:
+    return os.path.join(_NATIVE_DIR, "build", build_key(), "libpsi_host.so")
+
+
+def _build(so_path: str) -> None:
+    """make into a private temp name, then rename: concurrent processes
+    (test workers) never load a half-written library."""
+    import fcntl
+
+    os.makedirs(os.path.dirname(so_path), exist_ok=True)
+    with open(so_path + ".lock", "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if os.path.exists(so_path):
+            return
+        tmp = f"{so_path}.tmp{os.getpid()}"
+        make = ["make", "-C", _NATIVE_DIR, "-s", f"OUT={tmp}"]
+        try:
+            subprocess.run(make, check=True, capture_output=True,
+                           timeout=600)
+        except subprocess.CalledProcessError:
+            # toolchains without libgomp: the OpenMP pragmas compile
+            # away and the kernels run single-threaded
+            subprocess.run(make + ["OPENMP="], check=True,
+                           capture_output=True, timeout=600)
+        os.replace(tmp, so_path)
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
+    global _lib, _tried, load_error
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
         if os.environ.get("PSI_NO_NATIVE"):
+            load_error = "disabled by PSI_NO_NATIVE"
             return None
-        if not os.path.exists(_SO_PATH):
-            try:
-                subprocess.run(
-                    ["make", "-C", _NATIVE_DIR, "-s"],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except Exception:
-                return None
+        so_path = library_path()
         try:
-            lib = ctypes.CDLL(_SO_PATH)
-        except OSError:
+            if not os.path.exists(so_path):
+                _build(so_path)
+            lib = ctypes.CDLL(so_path)
+        except (OSError, subprocess.SubprocessError) as exc:
+            err = getattr(exc, "stderr", None)
+            load_error = f"{type(exc).__name__}: {exc}" + (
+                f"\n{err.decode(errors='replace')}" if err else ""
+            )
             return None
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
@@ -669,7 +716,7 @@ def fm_backward_batch(payload: np.ndarray, C: np.ndarray, n: int,
                       codes: np.ndarray):
     """Single-core C++ backward search over the checkpointed bit-plane
     payload (the measured sdsl-equivalent baseline, native/psi_fm.cpp).
-    payload: int32 [16, nbpad] (fm_stream.payload_host); codes: int32
+    payload: int32 [16, nblocks] (fm_trie.payload_host); codes: int32
     [N, k] forward char order, symbols 1..4. Returns (lo, hi, nonempty)
     or None without the library."""
     lib = _load()

@@ -9,15 +9,15 @@ keys travel as two int32 halves (hi = key >> 31, lo = key & 0x7fffffff
 the int64 keys). A probe for query q answers: does the LAST row with
 key <= q belong to q's (src, dst) pair and intersect [s_lo, s_hi]?
 
-Two exact formulations (PSI_DINDEX_PROBE picks; A/B in
-scripts/tpu_r4_dindex.py, numbers in docs/SCALING.md):
+Two exact formulations (PSI_DINDEX_PROBE picks):
 
   * probe_sort — ONE multi-key lax.sort of rows ++ queries with a tag
     as the tie-breaking key; each query's searchsorted-right position
-    falls out of a cumsum over the merged order. No serialized
-    gathers: sort + cumsum + one scatter, all vector units.
+    falls out of a cumsum over the merged order. No dependent
+    gathers: sort + cumsum + one scatter.
   * probe_bisect — fixed-trip lexicographic binary search, 2 gathers
-    per step. Fewer total ops, but gathers serialize on TPU.
+    per step. Fewer total ops, but each step's gathers depend on the
+    previous step's.
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Batched FM-index queries on device (JAX/XLA; Pallas fast path for the
-rank kernel).
+"""Batched FM-index queries on device (plain JAX, compiled by XLA).
 
 This is HOT LOOP #1 of the engine (the reference's per-char
 sdsl::backward_search, ref: include/psi/fmindex.hpp:851-869) recast as a

@@ -94,10 +94,7 @@ class ShardedPreparedTrie(NamedTuple):
     sharded over the mesh "data" axis (the multi-device analogue of
     fm_trie.PreparedTrie; built on the producer thread by
     SeedFinder.prepare_onpath when a mesh is active). Supports the same
-    wire formats as the single-device plan — in particular the delta
-    wire, so the sharded route ships the same ~1 B/child schedules the
-    chain route does (round-3 pinned the sharded wire to "packed";
-    round 4 unifies the fast path and the scaled path)."""
+    wire formats as the single-device plan, with the same default."""
 
     parents: jax.Array | None  # int32 [D, L, Npad] (plain format)
     chars: jax.Array | None
@@ -132,26 +129,19 @@ def prepare_trie_sharded(
     shard with a COMMON pad width and wire format, stack, and place
     sharded over the mesh. Thread-safe (producer thread).
 
-    `wire` follows fm_trie.prepare's default (delta on accelerator
-    backends, packed on CPU; PSI_TRIE_WIRE overrides); shards that
-    overflow the delta wire's fixed exception width force the whole
-    plan back to packed so formats stay uniform across the stack."""
-    import os
-
-    import jax as _jax
-
+    `wire` follows fm_trie.default_wire() (the single-device plan's
+    default); shards that overflow the delta wire's fixed exception
+    width force the whole plan back to packed so formats stay uniform
+    across the stack."""
     from psi_tpu.ops import fm_trie
-    from psi_tpu.ops.fm_stream import QTILE
+    from psi_tpu.ops.fm_trie import QTILE
 
     from psi_tpu.parallel.distributed import put_global
 
     if wire is None:
-        wire = os.environ.get("PSI_TRIE_WIRE")
-    if wire is None:
-        wire = "packed" if _jax.default_backend() == "cpu" else "delta"
+        wire = fm_trie.default_wire()
     if wire == "mask":
-        # the mask wire's in-device select derive lost its measured A/B
-        # (docs/SCALING.md); it stays single-plan only
+        # the mask wire's in-device select derive stays single-plan only
         wire = "packed"
 
     D = mesh.shape["data"]
@@ -182,9 +172,7 @@ def prepare_trie_sharded(
         # back to packed: rebuild everything packed for a uniform stack
         wire = "packed"
         plans = build_all(wire)
-    if wire == "delta" and len(
-        {getattr(p, "delta_bits", 8) for p in plans}
-    ) > 1:
+    if wire == "delta" and len({p.delta_bits for p in plans}) > 1:
         # shards disagree on the 4-bit/8-bit adaptive choice: force the
         # byte form everywhere for a uniform stack
         wire = "delta8"
@@ -238,7 +226,7 @@ def prepare_trie_sharded(
             stack("row_exc")
             if delta and plans[0].row_exc is not None else None
         ),
-        delta_bits=getattr(plans[0], "delta_bits", 8) if delta else 8,
+        delta_bits=plans[0].delta_bits if delta else 8,
     )
 
 
@@ -246,8 +234,6 @@ def _sharded_trie_device(
     mesh: Mesh,
     arrays_r,
     prepared: ShardedPreparedTrie,
-    use_pallas: bool,
-    interpret: bool,
     ftab_tab: Optional[jax.Array] = None,
     with_counts: bool = False,
 ):
@@ -271,7 +257,6 @@ def _sharded_trie_device(
             has_rows = prepared.row_delta is not None
             return fm_trie._trie_device(
                 arrays_r, delta_d[0], dmeta_d[0],
-                use_pallas=use_pallas, interpret=interpret,
                 lo0=None if has_rows else a4[0],
                 hi0=None if has_rows else a5[0],
                 delta_wire=True, dexc=dexc_d[0],
@@ -279,7 +264,7 @@ def _sharded_trie_device(
                 row_delta=a4[0] if has_rows else None,
                 row_exc=a5[0] if has_rows else None,
                 with_counts=with_counts,
-                delta_bits=getattr(prepared, "delta_bits", 8),
+                delta_bits=prepared.delta_bits,
             )
     elif packed:
         args = [prepared.poff, prepared.pbase, prepared.charpk,
@@ -288,7 +273,6 @@ def _sharded_trie_device(
         def local(poff_d, pbase_d, charpk_d, lo0_d, hi0_d):
             return fm_trie._trie_device(
                 arrays_r, poff_d[0], charpk_d[0],
-                use_pallas=use_pallas, interpret=interpret,
                 lo0=lo0_d[0], hi0=hi0_d[0], pbase=pbase_d[0], packed=True,
                 with_counts=with_counts,
             )
@@ -299,7 +283,6 @@ def _sharded_trie_device(
         def local(parents_d, chars_d, lo0_d, hi0_d):
             return fm_trie._trie_device(
                 arrays_r, parents_d[0], chars_d[0],
-                use_pallas=use_pallas, interpret=interpret,
                 lo0=lo0_d[0], hi0=hi0_d[0],
                 with_counts=with_counts,
             )
@@ -318,8 +301,6 @@ def sharded_trie_search(
     stream_arrays,
     keys: np.ndarray,
     k: int,
-    use_pallas: bool = False,
-    interpret: bool = False,
     ftab: Optional[np.ndarray] = None,
     prepared: Optional[ShardedPreparedTrie] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -346,9 +327,7 @@ def sharded_trie_search(
         ftab_tab = replicate(
             mesh, jnp.asarray(np.asarray(ftab, dtype=np.int32))
         )
-    lo, hi = _sharded_trie_device(
-        mesh, arrays_r, prepared, use_pallas, interpret, ftab_tab
-    )
+    lo, hi = _sharded_trie_device(mesh, arrays_r, prepared, ftab_tab)
     if jax.process_count() > 1:
         # DCN-spanning mesh: gather every process's data-shard results
         from jax.experimental import multihost_utils
@@ -385,10 +364,10 @@ def sharded_expand_locate(
     """The device-chained occurrence expansion + locate, per shard: each
     device expands its own DEVICE-RESIDENT (lo, hi) ranges against the
     replicated SA and downloads one int32 global position per hit
-    (gpos-only download — the round-3 chain's transfer profile, now on
-    the mesh). Returns np int32 [D, cap]; with `local_only` returns
-    (gpos [D, cap] filled for addressable shards, local_ds bool [D])
-    and skips the cross-process allgather."""
+    (gpos-only download, the single-device chain's transfer profile).
+    Returns np int32 [D, cap]; with `local_only` returns (gpos [D, cap]
+    filled for addressable shards, local_ds bool [D]) and skips the
+    cross-process allgather."""
     from psi_tpu.ops import fm_trie
 
     from psi_tpu.parallel.distributed import put_global
@@ -420,7 +399,7 @@ def sharded_expand_locate(
             # process-sharded emission: fetch ONLY this process's
             # addressable shards; the caller joins/emits its key
             # slice and the merged hit stream is the concatenation of
-            # the processes' disjoint streams (VERDICT r4 item 3)
+            # the processes' disjoint streams
             out = np.zeros((D, cap), dtype=np.int32)
             local_ds = np.zeros(D, dtype=bool)
             for s in gpos.addressable_shards:

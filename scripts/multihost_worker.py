@@ -59,7 +59,7 @@ def main():
 
     from psi_tpu.fmindex import FMIndex
     from psi_tpu.ops.fm import keys_to_codes
-    from psi_tpu.ops.fm_stream import build_stream_arrays
+    from psi_tpu.ops.fm_trie import build_stream_arrays
     from psi_tpu.parallel.distributed import (
         build_sharded_index, sharded_count,
     )

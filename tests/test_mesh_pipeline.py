@@ -146,7 +146,7 @@ def test_sharded_trie_delta_wire(monkeypatch):
     packed wire bit-exactly, with and without the ftab row seed."""
     from psi_tpu.fmindex import FMIndex
     from psi_tpu.ops import fm as fm_ops
-    from psi_tpu.ops import fm_stream
+    from psi_tpu.ops import fm_trie
     from psi_tpu.parallel.mesh import (
         device_mesh, prepare_trie_sharded, sharded_trie_search,
     )
@@ -154,7 +154,7 @@ def test_sharded_trie_delta_wire(monkeypatch):
     rng = np.random.RandomState(27)
     s = "".join(rng.choice(list("ACGT"), size=60_000))
     fm = FMIndex.build_from_strings([s[::-1]])
-    sarr = fm_stream.build_stream_arrays(fm)
+    sarr = fm_trie.build_stream_arrays(fm)
     k = 12
     keys = np.unique(rng.randint(0, 4 ** k, size=4000).astype(np.uint64))
     mesh = device_mesh(jax.device_count())
@@ -217,13 +217,13 @@ def test_sharded_trie_plain_wire(monkeypatch):
     import numpy as np
 
     from psi_tpu.fmindex import FMIndex
-    from psi_tpu.ops import fm_stream
+    from psi_tpu.ops import fm_trie
     from psi_tpu.parallel.mesh import device_mesh, sharded_trie_search
 
     rng = np.random.RandomState(23)
     s = "".join(rng.choice(list("ACGT"), size=60_000))
     fm = FMIndex.build_from_strings([s[::-1]])
-    sarr = fm_stream.build_stream_arrays(fm)
+    sarr = fm_trie.build_stream_arrays(fm)
     k = 12
     keys = np.unique(rng.randint(0, 4 ** k, size=3000).astype(np.uint64))
     mesh = device_mesh(jax.device_count())

@@ -273,7 +273,7 @@ def test_fm_backward_batch_matches_host():
     """native/psi_fm.cpp single-core backward search (the measured
     bench baseline) is exact vs FMIndex.backward_search."""
     from psi_tpu.fmindex import FMIndex
-    from psi_tpu.ops import fm_stream
+    from psi_tpu.ops import fm_trie
     from psi_tpu import native
 
     rng = np.random.RandomState(11)
@@ -292,7 +292,7 @@ def test_fm_backward_batch_matches_host():
     kmers[half:] = rng.randint(0, 4, size=(N - half, k))
     codes = (kmers + 1).astype(np.int32)
     res = native.fm_backward_batch(
-        fm_stream.payload_host(fm), fm.C.astype(np.int32), fm.size, codes
+        fm_trie.payload_host(fm), fm.C.astype(np.int32), fm.size, codes
     )
     if res is None:
         pytest.skip("native library unavailable")

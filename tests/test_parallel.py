@@ -76,13 +76,13 @@ def test_sharded_trie_search_matches_single():
     import jax.numpy as jnp
 
     from psi_tpu.fmindex import FMIndex
-    from psi_tpu.ops import fm as fm_ops, fm_stream
+    from psi_tpu.ops import fm as fm_ops, fm_trie
     from psi_tpu.parallel.mesh import device_mesh, sharded_trie_search
 
     rng = np.random.RandomState(23)
     s = "".join(rng.choice(list("ACGT"), size=60_000))
     fm = FMIndex.build_from_strings([s[::-1]])
-    sarr = fm_stream.build_stream_arrays(fm)
+    sarr = fm_trie.build_stream_arrays(fm)
     dense = fm_ops.to_device(fm, dense_occ=True)
 
     k = 12

@@ -1,4 +1,4 @@
-"""Streaming-rank kernel (fm_stream): interpret-mode parity tests."""
+"""Trie-batched on-path route (ops/fm_trie.py): parity tests."""
 
 import numpy as np
 import pytest
@@ -7,127 +7,12 @@ import jax.numpy as jnp
 
 from psi_tpu.fmindex import FMIndex
 from psi_tpu.ops import fm as fm_ops
-from psi_tpu.ops import fm_stream
-
-
-def _random_fm(rng, n_strings=4, lo=200, hi=2000, alphabet="ACGT"):
-    strings = [
-        "".join(rng.choice(list(alphabet), size=rng.randint(lo, hi)))
-        for _ in range(n_strings)
-    ]
-    return FMIndex.build_from_strings([s[::-1] for s in strings]), strings
-
-
-def test_rank_stream_matches_host():
-    rng = np.random.RandomState(7)
-    fm, _ = _random_fm(rng, alphabet="ACGTN")
-    arrays = fm_stream.build_stream_arrays(fm)
-    M = 3000
-    pos = np.sort(rng.randint(0, fm.size + 1, size=M)).astype(np.int32)
-    chars = rng.randint(1, 5, size=M).astype(np.int32)
-    got = np.asarray(
-        fm_stream.rank_stream(
-            arrays, jnp.asarray(chars), jnp.asarray(pos), interpret=True
-        )
-    )
-    # host truth: occ checkpoint + block count
-    bwt = fm.bwt
-    for i in rng.choice(M, 300, replace=False):
-        expect = int(np.count_nonzero(bwt[: pos[i]] == chars[i]))
-        assert got[i] == expect, (i, pos[i], chars[i])
-
-
-def test_rank4_mxu_matches_host(monkeypatch):
-    """The MXU one-hot rank4 kernel (PSI_RANK4=mxu) is exact vs host
-    ranks, including plane words with the sign bit set and positions
-    scattered across many windows."""
-    import jax.numpy as jnp
-
-    rng = np.random.RandomState(13)
-    fm, _ = _random_fm(rng, n_strings=3, lo=3000, hi=9000)
-    arrays = fm_stream.build_stream_arrays(fm)
-    M = fm_stream.QTILE
-    pos = np.sort(rng.randint(0, fm.size + 1, size=M)).astype(np.int32)
-    monkeypatch.setenv("PSI_RANK4", "mxu")
-    out = np.asarray(
-        fm_stream.rank4_stream(arrays, jnp.asarray(pos), interpret=True)
-    ).reshape(-1, 4, fm_stream.QROWS, fm_stream.WB)
-    # undo the slab layout: query q of slab s is out[s, :, q//128, q%128]
-    got = np.moveaxis(out, 1, 3).reshape(-1, 4)  # [M, 4]
-    bwt = fm.bwt
-    for i in rng.choice(M, 200, replace=False):
-        for c in range(1, 5):
-            expect = int(np.count_nonzero(bwt[: pos[i]] == c))
-            assert got[i, c - 1] == expect, (i, pos[i], c)
-
-
-def test_backward_search_sorted_matches_generic():
-    rng = np.random.RandomState(8)
-    fm, strings = _random_fm(rng)
-    arrays = fm_stream.build_stream_arrays(fm)
-    plain = fm_ops.to_device(fm)
-
-    k = 14
-    lut = {c: i + 1 for i, c in enumerate("ACGT")}
-    rows = [rng.randint(1, 5, size=k).astype(np.int32) for _ in range(500)]
-    for s in strings[:2]:
-        for start in range(0, len(s) - k, 31):
-            frag = s[start: start + k]
-            rows.append(np.array([lut[c] for c in frag], dtype=np.int32))
-    codes = np.stack(rows)
-    # sorted-rows invariant (what np.unique over packed keys gives)
-    keys = codes.astype(np.int64) @ (4 ** np.arange(k - 1, -1, -1, dtype=np.int64))
-    codes = codes[np.argsort(keys, kind="stable")]
-
-    l1, h1 = fm_ops.backward_search_codes(plain, jnp.asarray(codes))
-    l2, h2 = fm_stream.backward_search_sorted(
-        arrays, jnp.asarray(codes), interpret=True
-    )
-    l1, h1 = np.asarray(l1), np.asarray(h1)
-    l2, h2 = np.asarray(l2), np.asarray(h2)
-    np.testing.assert_array_equal(h1 - l1, h2 - l2)
-    nz = h1 > l1
-    assert nz.any()
-    np.testing.assert_array_equal(l1[nz], l2[nz])
-
-
-def test_backward_search_sorted_with_ftab_seed():
-    rng = np.random.RandomState(9)
-    fm, _ = _random_fm(rng, n_strings=3)
-    arrays = fm_stream.build_stream_arrays(fm)
-    p = 4
-    k = 10
-    ftab = fm_ops.build_ftab(fm, p)
-    codes = np.sort(
-        rng.randint(1, 5, size=(256, k)).astype(np.int32), axis=0
-    )  # per-column sort is NOT lexicographic; build properly:
-    keys = rng.randint(0, 4 ** k, size=256)
-    keys.sort()
-    codes = fm_ops.keys_to_codes(keys.astype(np.uint64), k)
-
-    weights = 4 ** np.arange(p - 1, -1, -1, dtype=np.int64)
-    pk = (codes[:, :p].astype(np.int64) - 1) @ weights
-    start = ftab[pk]
-    l2, h2 = fm_stream.backward_search_sorted(
-        arrays,
-        jnp.asarray(codes[:, p:]),
-        lo0=jnp.asarray(start[:, 0]),
-        hi0=jnp.asarray(start[:, 1]),
-        interpret=True,
-    )
-    plain = fm_ops.to_device(fm)
-    l1, h1 = fm_ops.backward_search_codes(plain, jnp.asarray(codes))
-    l1, h1 = np.asarray(l1), np.asarray(h1)
-    l2, h2 = np.asarray(l2), np.asarray(h2)
-    np.testing.assert_array_equal(h1 - l1, np.asarray(h2) - np.asarray(l2))
-    nz = h1 > l1
-    if nz.any():
-        np.testing.assert_array_equal(l1[nz], l2[nz])
+from psi_tpu.ops import fm_trie
 
 
 def test_seed_finder_stream_route_matches_default(monkeypatch, tmp_path):
-    """PSI_STREAM=1 on-path route (ftab seed + streaming kernel,
-    interpret mode on CPU) emits the identical hit multiset."""
+    """PSI_STREAM=1 on-path route (ftab seed + trie levels) emits the
+    identical hit multiset."""
     from psi_tpu.graph import Graph
     from psi_tpu.records import Records
     from psi_tpu.seed_finder import SeedFinder
@@ -200,21 +85,16 @@ def test_seed_finder_prepare_onpath_matches(monkeypatch):
     assert plain == prepared
 
 
-@pytest.mark.parametrize("fused", ["0", "1"])
-def test_trie_search_matches_generic(monkeypatch, fused):
+@pytest.mark.parametrize("wire", ["packed", "mask", "delta"])
+def test_trie_search_matches_generic(wire):
     """Frontier level extension vs the per-query scan, on a text large
-    enough for many payload windows (regression: correctness must not
-    depend on positions staying inside one window). Covers both the
-    scan route (fused=0) and the single-launch fused route (fused=1,
-    ops/fm_fused.py) across every wire format."""
-    from psi_tpu.ops import fm_trie
-
-    monkeypatch.setenv("PSI_TRIE_FUSED", fused)
+    enough that frontier positions span many payload blocks, for each
+    wire format with and without the ftab-seeded frontier."""
 
     rng = np.random.RandomState(17)
     s = "".join(rng.choice(list("ACGT"), size=120_000))
     fm = FMIndex.build_from_strings([s[::-1]])
-    arr = fm_stream.build_stream_arrays(fm)
+    arr = fm_trie.build_stream_arrays(fm)
     dense = fm_ops.to_device(fm, dense_occ=True)
 
     k = 13
@@ -235,58 +115,23 @@ def test_trie_search_matches_generic(monkeypatch, fused):
     w1 = np.asarray(h1) - np.asarray(l1)
 
     ftab = fm_ops.build_ftab(fm, 5)
-    for pallas in (False, True):
-        for ft in (None, ftab):
-            for wire in ("packed", "mask", "delta"):
-                prep = fm_trie.prepare(keys, k, ft, wire=wire)
-                lo2, hi2 = fm_trie.trie_search(
-                    arr, keys, k, use_pallas=pallas, interpret=pallas,
-                    ftab=ft, prepared=prep,
-                )
-                np.testing.assert_array_equal(w1, hi2 - lo2)
-                nz = w1 > 0
-                assert nz.any()
-                np.testing.assert_array_equal(np.asarray(l1)[nz], lo2[nz])
-
-
-def test_trie_search_pair_kernel(monkeypatch):
-    """PSI_RANK4_PAIR=1 (lo+hi ranked in one launch) is exact vs the
-    two-pass default, interpret mode."""
-    from psi_tpu.ops import fm_trie
-
-    rng = np.random.RandomState(41)
-    s = "".join(rng.choice(list("ACGT"), size=70_000))
-    fm = FMIndex.build_from_strings([s[::-1]])
-    arr = fm_stream.build_stream_arrays(fm)
-    dense = fm_ops.to_device(fm, dense_occ=True)
-    k = 12
-    keys = np.unique(rng.randint(0, 4 ** k, size=3000).astype(np.uint64))
-    codes = fm_ops.keys_to_codes(keys, k)
-    l1, h1 = fm_ops.backward_search_codes(dense, jnp.asarray(codes))
-    l1, h1 = np.asarray(l1), np.asarray(h1)
-    ftab = fm_ops.build_ftab(fm, 5)
-    monkeypatch.setenv("PSI_RANK4_PAIR", "1")
-    monkeypatch.setenv("PSI_TRIE_FUSED", "0")  # pair kernel is the scan route
-    prep = fm_trie.prepare(keys, k, ftab, wire="plain", pack=False)
-    lo2, hi2 = fm_trie.trie_search(
-        arr, keys, k, use_pallas=True, interpret=True, ftab=ftab,
-        prepared=prep,
-    )
-    np.testing.assert_array_equal(h1 - l1, hi2 - lo2)
-    nz = h1 > l1
-    np.testing.assert_array_equal(l1[nz], lo2[nz])
+    for ft in (None, ftab):
+        prep = fm_trie.prepare(keys, k, ft, wire=wire)
+        lo2, hi2 = fm_trie.trie_search(arr, keys, k, ftab=ft, prepared=prep)
+        np.testing.assert_array_equal(w1, hi2 - lo2)
+        nz = w1 > 0
+        assert nz.any()
+        np.testing.assert_array_equal(np.asarray(l1)[nz], lo2[nz])
 
 
 def test_trie_search_mask_search_derive(monkeypatch):
     """PSI_MASK_DERIVE=search (the searchsorted select, no longer the
     default) stays exact; mask_derive is a static jit arg so flipping
     the env between calls retraces."""
-    from psi_tpu.ops import fm_trie
-
     rng = np.random.RandomState(29)
     s = "".join(rng.choice(list("ACGT"), size=50_000))
     fm = FMIndex.build_from_strings([s[::-1]])
-    arr = fm_stream.build_stream_arrays(fm)
+    arr = fm_trie.build_stream_arrays(fm)
     dense = fm_ops.to_device(fm, dense_occ=True)
     k = 12
     keys = np.unique(rng.randint(0, 4 ** k, size=3000).astype(np.uint64))
@@ -309,8 +154,6 @@ def test_expand_slots_scatter_matches_search(monkeypatch):
     """PSI_EXPAND=scatter (max-scatter + associative max-scan) agrees
     with the searchsorted form on the live region, incl. zero-width
     slots and an empty tail."""
-    from psi_tpu.ops import fm_trie
-
     rng = np.random.RandomState(31)
     w = rng.randint(0, 5, size=257).astype(np.int32)
     w[rng.choice(257, 80, replace=False)] = 0
@@ -390,8 +233,6 @@ def test_seed_finder_chain_route_matches_default(monkeypatch):
     # scatter occurrence expansion through the chained route. PSI_EXPAND
     # is read at TRACE time and (k, cap) were already traced above with
     # the search form — drop the cached traces so the env flip takes.
-    from psi_tpu.ops import fm_trie
-
     monkeypatch.setenv("PSI_EXPAND", "scatter")
     fm_trie._expand_locate_device.clear_cache()
     for thr in (0, 1):
@@ -451,65 +292,14 @@ def test_seeds_all_arrays_eager_fused_traverse(monkeypatch):
     assert off_a == off_b
 
 
-def test_trie_fused_remainder_loop(monkeypatch):
-    """PSI_FUSED_PUNROLL=1 forces most parent windows through the
-    dynamic remainder loop (the statically-unrolled fast path covers
-    only the first window) — exactness must not depend on the unroll
-    width. PUNROLL is read at import, so reload the module."""
-    import importlib
-
-    from psi_tpu.ops import fm_trie, fm_fused
-
-    monkeypatch.setenv("PSI_FUSED_PUNROLL", "1")
-    importlib.reload(fm_fused)
-    try:
-        rng = np.random.RandomState(23)
-        s = "".join(rng.choice(list("ACGT"), size=90_000))
-        fm = FMIndex.build_from_strings([s[::-1]])
-        arr = fm_stream.build_stream_arrays(fm)
-        dense = fm_ops.to_device(fm, dense_occ=True)
-        k = 12
-        keys = np.unique(
-            rng.randint(0, 4 ** k, size=4000).astype(np.uint64))
-        codes = fm_ops.keys_to_codes(keys, k)
-        l1, h1 = fm_ops.backward_search_codes(dense, jnp.asarray(codes))
-        l1, h1 = np.asarray(l1), np.asarray(h1)
-        sched = fm_trie.build_schedule(keys, k)
-        Npad = 8192
-        parents = np.stack([
-            fm_trie._pad_level(p, Npad, max(int(p[-1]), 0))
-            for p in sched.parents
-        ]).astype(np.int32)
-        chars = np.stack([
-            fm_trie._pad_level(c, Npad, int(c[-1]))
-            for c in sched.chars
-        ]).astype(np.int32)
-        lo_f, hi_f = fm_fused.trie_fused(
-            arr, jnp.asarray(parents), jnp.asarray(chars),
-            jnp.asarray(np.zeros(Npad, np.int32)),
-            jnp.asarray(np.full(Npad, fm.size, np.int32)),
-            interpret=True,
-        )
-        lo_f = np.asarray(lo_f)[sched.leaf_perm]
-        hi_f = np.asarray(hi_f)[sched.leaf_perm]
-        np.testing.assert_array_equal(h1 - l1, hi_f - lo_f)
-        nz = h1 > l1
-        np.testing.assert_array_equal(l1[nz], lo_f[nz])
-    finally:
-        monkeypatch.delenv("PSI_FUSED_PUNROLL")
-        importlib.reload(fm_fused)
-
-
 def test_delta_wire_nibble_form():
     """4-bit delta wire: dense key fills pick the nibble form (half the
     schedule upload), sparse fills keep the byte form; both match the
-    per-query scan exactly (incl. the fused route's device derive)."""
-    from psi_tpu.ops import fm_trie
-
+    per-query scan exactly."""
     rng = np.random.RandomState(23)
     s = "".join(rng.choice(list("ACGT"), size=60_000))
     fm = FMIndex.build_from_strings([s[::-1]])
-    arr = fm_stream.build_stream_arrays(fm)
+    arr = fm_trie.build_stream_arrays(fm)
     dense = fm_ops.to_device(fm, dense_occ=True)
     k = 12
 
